@@ -2,7 +2,7 @@
 //
 // The reference pipeline's only native component is minigraph (C), which
 // also owns gzip decompression of the read files (SURVEY §2.1). In this
-// framework the compute path is JAX/Pallas on TPU; the native runtime piece
+// framework the compute path is JAX on the GPU; the native runtime piece
 // is the host-side read loader feeding it: zlib streaming decompression,
 // record parsing, and ASCII→code conversion (A,C,G,T → 0..3, other → 4) in
 // one pass. Exposed as a C ABI consumed via ctypes
@@ -706,7 +706,7 @@ struct ChainScratch {
 
 // Anchors -> chains -> blocks for ONE read given its minimizers (pos local
 // to the read, position-sorted). Factored out of chain_reads so the
-// device-scan path (svt_chain4: minimizers computed on the TPU device,
+// device-scan path (svt_chain4: minimizers computed on the device,
 // align/dev_scan.py) shares the exact lookup + chaining semantics.
 void chain_one_read(int64_t r, int64_t rlen, const int32_t* mpos,
                     const uint32_t* mhash, const int8_t* mstrand, int64_t nm,
@@ -1498,7 +1498,7 @@ void* svt_chain4(const int64_t* offsets, int64_t n_reads, int64_t n_mins,
 }
 
 // Chaining from the on-device scan's emission bitmask (align/dev_scan.py):
-// the TPU decides WHICH k-mer starts are minimizers; this recomputes their
+// the device decides WHICH k-mer starts are minimizers; this recomputes their
 // hashes, applies the panel bitmap + exact lookup, and chains — sharing
 // chain_one_read with svt_chain3/svt_chain4. Threaded over read ranges
 // balanced by base volume (same partitioning as svt_chain3).

@@ -15,7 +15,7 @@ if [ ! -d "$TESTDIR" ]; then
 fi
 
 cd "$WORK"
-# Correctness gate: run on CPU for determinism and to leave the TPU free.
+# Correctness gate: run on the CPU (SVJT_PLATFORM=cuda runs it on the GPU).
 export JAX_PLATFORMS="${SVJT_PLATFORM:-cpu}"
 PYTHONPATH="$REPO" python3 -m svjedi_tpu run \
     -v "$TESTDIR/test.vcf" \

@@ -1,6 +1,6 @@
-"""svjedi-tpu: TPU-native structural-variant genotyping for long reads.
+"""svjedi-tpu: structural-variant genotyping for long reads on the GPU.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX re-design of the capabilities of
 SandraLouise/SVJedi-graph (reference layout documented in SURVEY.md and
 ARCHITECTURE.md). Public entry points:
 

@@ -1,17 +1,14 @@
 """On-device minimizer scan: the seed stage's dominant host cost moves to
-the TPU's vector units.
+the device.
 
-Round-2 profile: the merged panel+decoy minimizer scan (native C++,
-2 host cores) was ~50% of every steady-state align pass — the chip idled
-behind the host (PERF.md "Known headroom"). The scan is pure elementwise
-integer work (rolling 2-bit k-mer packing, a murmur finalizer, a
-w-window leftmost-argmin) over buffers that ALREADY live in HBM for the
-DP kernels, i.e. exactly what XLA fuses onto the VPU for free.
+The merged panel+decoy minimizer scan is pure elementwise integer work
+(rolling 2-bit k-mer packing, a murmur finalizer, a w-window
+leftmost-argmin) over buffers that ALREADY live in device memory for the
+DP kernels, i.e. exactly what XLA fuses into one elementwise program.
 
-Design (measured, not assumed — see PERF.md): scatters and per-element
-gathers are the only expensive XLA ops at this size (~50-70 ms per 8M
-elements on this chip vs ~1 ms for the entire fused elementwise
-pipeline), so the kernel uses neither. Emission is decided pointwise by
+Design: the scan uses no scatter and no per-element gather (the only XLA
+ops here whose cost grows per element rather than fusing into the
+elementwise pipeline). Emission is decided pointwise by
 a run-length identity: position p is the leftmost argmin of SOME
 w-window iff a(p) + b(p) >= w-1, where a(p) = length of the maximal run
 of predecessors with strictly greater key and b(p) = maximal run of
@@ -148,11 +145,10 @@ def _scan_kernel(
 def _scan_cap(n_codes: int, n_cap: int) -> int:
     """Static scan length: n_codes rounded up to a quarter-octave class
     ({1, 1.25, 1.5, 1.75} x 2^k, multiple-of-8), capped at the buffer's
-    n_cap. The DP kernels need n_cap's coarse power-of-two classes (every
-    distinct shape is a 20-60 s Mosaic compile), but the scan is plain XLA
-    (seconds to compile), so finer classes are affordable — and the
+    n_cap. The buffer keeps n_cap's coarse power-of-two classes, but the
+    scan is a cheap XLA compile, so finer classes are affordable — and the
     power-of-two padding is real device time at big chunks (a 17 Mb chunk
-    pads to 33.6 M: the scan runs 2x the useful volume)."""
+    pads to 33.6 M: the scan would run 2x the useful volume)."""
     if n_codes <= 32:
         return min(32, n_cap)
     base = 1 << max((n_codes - 1).bit_length() - 1, 5)

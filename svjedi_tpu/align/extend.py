@@ -1,7 +1,7 @@
 """Banded affine-gap local alignment, batched (the extend stage).
 
 The workhorse: score a batch of fixed-shape (read-window × target-window)
-problems along a diagonal band. Anti-error design for TPU:
+problems along a diagonal band:
 
 - row iteration over the read axis with the whole band as a vector lane
   dimension — all dependencies resolve to the previous row except
@@ -12,9 +12,10 @@ problems along a diagonal band. Anti-error design for TPU:
   panel path with that offset), so the kernel indexes statically.
 
 Two implementations with one contract:
-- :func:`band_dp_batch` — jnp ``lax.scan`` (compiles on CPU and TPU; the
-  correctness reference and the fallback path);
-- kernels/band_dp.py — the Pallas TPU kernel (same results, faster).
+- :func:`band_dp_batch` — jnp ``lax.scan``: the correctness reference and
+  the CPU engine;
+- kernels/band_dp.cu — the CUDA kernel, the GPU engine (bit-identical
+  results, ties included).
 
 A tiny O(mn) full-matrix Smith-Waterman (:func:`smith_waterman_full`) exists
 for kernel unit tests only.

@@ -15,7 +15,7 @@ emits **chain blocks**:
    independent fixed-shape DP problem whose diagonal ``d0`` is the median
    anchor diagonal of the block (interpolated for anchor-free interior
    blocks, edge-extended for the extension blocks) — the piecewise-banded
-   equivalent of aligning along the chain, with the Pallas kernel unchanged.
+   equivalent of aligning along the chain, with the DP kernel unchanged.
 
 Block results are re-aggregated per chain by align/pipeline.py (score sum,
 span union) before winner selection.

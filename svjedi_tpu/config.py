@@ -89,14 +89,14 @@ class AlignConfig:
     threads: int = 0
 
     # Device-memory budgeting (align/pipeline.py pending-chunk flush cap).
-    #: Device HBM bytes. 0 = query the device's ``memory_stats()`` at run
-    #: time, falling back to 16 GiB (the v5e this was tuned on) when the
-    #: backend reports none.
+    #: Device memory bytes. 0 = the GPU's ``memory_stats()['bytes_limit']``
+    #: (an error if it reports none), or a fixed budget on the CPU backend
+    #: (align/pipeline.py CPU_DEVICE_BYTES).
     hbm_bytes: int = 0
-    #: Fraction of HBM budgeted for pending chunk *input* buffers (fwd+rc
-    #: read codes + packed words held until their flush); panel/decoy
-    #: buffers, DP metadata and result arrays share the rest. 6 GB of a
-    #: 16 GB v5e measured safe at the 250 Mb scale config (PERF.md).
+    #: Fraction of device memory budgeted for pending chunk *input* buffers
+    #: (fwd+rc read codes held until their flush); the panel/decoy buffers,
+    #: DP metadata, results and XLA's temporaries (the XLA engine's scan
+    #: state and gathered windows scale with the batch) share the rest.
     pending_input_frac: float = 0.375
 
 
@@ -171,13 +171,13 @@ def resolve_min_count_density(
 
 @dataclasses.dataclass(frozen=True)
 class DistConfig:
-    """Device-mesh layout (SURVEY §2.2: the TPU-native scaling strategy)."""
+    """Device-mesh layout (SURVEY §2.2: the data-parallel scaling strategy)."""
 
     #: Number of data-parallel read shards: ``run_pipeline`` round-robins
     #: read chunks over this many local devices (``--data-shards``).
     data_shards: int = 1
     #: SV tag-space shards of the on-mesh count step (mesh axis ``graph``
-    #: in dist/engine.py; exercised by the multichip dry run). The chunked
+    #: in dist/engine.py; exercised by the multi-device dry run). The chunked
     #: production pipeline replicates the panel — use the on-mesh step for
     #: genomes whose tag table warrants sharding.
     graph_shards: int = 1

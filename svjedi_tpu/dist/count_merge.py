@@ -15,7 +15,7 @@ Division of labor: the host precomputes the integer segment labels (dense
 once per merge); the device does every per-entry test and reduction and
 the collective. Groups are assigned to data shards whole (reads never
 straddle a shard), so shard-local segment ids are exact — the same
-discipline as dist/engine.make_sharded_count_step_v3.
+discipline as dist/engine.make_sharded_count_step.
 """
 
 from __future__ import annotations

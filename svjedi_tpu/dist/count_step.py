@@ -1,6 +1,6 @@
 """Device-side owned-link table for the on-mesh count step.
 
-The count step itself lives in dist/engine.py (the production v3 kernels
+The count step itself lives in dist/engine.py (the production DP engine
 under shard_map with one psum of the (n_tags, 2) matrix); this module
 holds the padded per-path owned-link table both the engine and the driver
 entry points consume.
@@ -22,7 +22,7 @@ class OwnedTable(NamedTuple):
     valid: jnp.ndarray  # (n_paths, K) bool
     #: crossed graph-link ids (cluster.PanelPath.owned[..][3]); used by the
     #: mesh count merge's per-(read, link, tag, allele) dedup. May be None
-    #: for consumers that predate it (the v3 engine ignores it).
+    #: for consumers that predate it (dist/engine.py ignores it).
     link: jnp.ndarray = None  # (n_paths, K) int32
 
 

@@ -1,18 +1,15 @@
-"""Sharded count step running the PRODUCTION v3 alignment engine.
+"""Sharded count step running the production DP engine.
 
-Round-1 gap (VERDICT r1, "What's weak" #1): ``dist/count_step.py`` proved
-the psum count-merge design on the XLA reference DP, not on the engine that
-produces the benchmark numbers. This module closes the gap: one jitted SPMD
-program that takes the production device layout (2-bit packed read/panel
-word buffers + the (5, P) window metadata of ``align/device.py``), runs the
-v3 Pallas kernels (kernels/band_dp_v3.py) for BOTH passes — forward for
-(score, qe, te), reverse on end-clamped windows for (qs, ts) — applies the
-winner + junction-coverage + density rules, and psums the per-(tag, allele)
-count matrix over a (data, graph) mesh.
+One jitted SPMD program takes the production device layout (the read and
+panel buffers + the (5, P) window metadata of ``align/device.py``), runs
+the platform's DP engine (``align.device.resolve_engine``: the CUDA kernel
+on a GPU, the XLA reference on the CPU) for (score, qs, ts, qe, te),
+applies the winner + junction-coverage + density rules, and psums the
+per-(tag, allele) count matrix over a (data, graph) mesh.
 
 Sharding layout (SURVEY §2.2/§5.8):
-- candidate problems sharded over ``data`` (each chip DPs its slice);
-- packed sequence buffers + owned-link table replicated;
+- candidate problems sharded over ``data`` (each card DPs its slice);
+- sequence buffers + owned-link table replicated;
 - the tag (SV) space range-partitioned over ``graph``;
 - ONE ``psum`` of the (n_tags, 2) int32 matrix is the only collective.
 
@@ -32,8 +29,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..align.device import DeviceData, _prep_v3_windows_packed
-from ..align.extend import DPParams, band_dp_batch
+from ..align.device import OUT_COLS, window_score_packed
+from ..align.extend import DPParams
 from .count_step import OwnedTable
 
 
@@ -44,11 +41,9 @@ from .count_step import OwnedTable
         "min_score", "min_density_millis", "engine", "tag_lo", "tag_hi",
     ),
 )
-def dp_filter_count_v3(
-    rw: jnp.ndarray,  # packed read words (device.upload layout)
-    rn: jnp.ndarray,
-    pw: jnp.ndarray,  # packed panel words
-    pn: jnp.ndarray,
+def dp_filter_count(
+    reads2: jnp.ndarray,  # device.upload read layout
+    panel_padded: jnp.ndarray,
     meta: jnp.ndarray,  # (5, P) int32 rows per device.META_ROWS
     path_start: jnp.ndarray,  # (P,) int32 panel_start[cand_path]
     group: jnp.ndarray,  # (P,) int32 winner-competition group id
@@ -60,38 +55,24 @@ def dp_filter_count_v3(
     params: DPParams,
     n_groups: int,
     n_tags: int,
+    engine: str,  # align.device.resolve_engine()
     d_over: int = 100,
     min_score: int = 40,
     min_density_millis: int = 500,
-    engine: str = "v3",  # "v3" (Pallas, TPU), "v3i" (interpret), "xla"
     tag_lo: int = 0,
     tag_hi: int = 1 << 30,
 ) -> Dict[str, jnp.ndarray]:
-    """Production-engine DP → winner → junction counts, fully on device.
-
-    The same two-pass discipline as the host pipeline (align/pipeline.py):
-    the forward pass scores every candidate, the reverse pass recovers the
-    start of an optimal alignment ending at (qe, te). Here the reverse pass
-    runs for all candidates (inside one jit there is no host-side winner
-    compaction), which is affordable because this step is used on bounded
-    per-shard batches.
-    """
-    qT, tT = _prep_v3_windows_packed(rw, rn, pw, pn, meta, bucket, band)
-    if engine in ("v3", "v3i"):
-        from ..kernels.band_dp_v3 import band_dp_v3
-
-        out = band_dp_v3(
-            qT, tT, bucket, band, params, interpret=(engine == "v3i")
-        )
-    else:
-        out = band_dp_batch(qT.T, tT.T, band, params)
-    score = out["score"].astype(jnp.int32)
-    qs, qe = out["qs"].astype(jnp.int32), out["qe"].astype(jnp.int32)
+    """Production-engine DP → winner → junction counts, fully on device."""
+    res = window_score_packed(
+        reads2, panel_padded, meta, bucket=bucket, band=band, params=params,
+        engine=engine,
+    )
+    score, qs, ts, qe, te = (res[:, i] for i in range(len(OUT_COLS)))
     # Window coords → path coords (meta row 2 is absolute into the padded
     # panel buffer; lane 0 of the target window sits at that offset).
     toff = meta[2] - path_start
-    ts = out["ts"].astype(jnp.int32) + toff
-    te = out["te"].astype(jnp.int32) + toff
+    ts = ts + toff
+    te = te + toff
 
     # Winner per group under the production count rules: score floor +
     # score-density floor (align/pipeline.py prune_secondaries).
@@ -138,7 +119,7 @@ def dp_filter_count_v3(
     }
 
 
-def make_sharded_count_step_v3(
+def make_sharded_count_step(
     mesh: Mesh,
     *,
     bucket: int,
@@ -146,15 +127,15 @@ def make_sharded_count_step_v3(
     params: DPParams,
     n_groups_per_shard: int,
     n_tags: int,
+    engine: str,
     d_over: int = 100,
     min_score: int = 40,
     min_density_millis: int = 500,
-    engine: str = "v3",
 ):
-    """Jitted multi-chip v3 count step over a (data, graph) mesh.
+    """Jitted multi-card count step over a (data, graph) mesh.
 
-    Candidate arrays shard over ``data`` (meta on its problem axis); packed
-    buffers and the owned table replicate; each graph shard counts its
+    Candidate arrays shard over ``data`` (meta on its problem axis);
+    sequence buffers and the owned table replicate; each graph shard counts its
     disjoint tag range; one psum over the whole mesh returns the exact
     global (n_tags, 2) matrix replicated. Group ids are shard-local
     (callers give each data shard its own candidate groups).
@@ -162,12 +143,13 @@ def make_sharded_count_step_v3(
     n_graph = mesh.shape["graph"]
     tags_per_shard = -(-n_tags // n_graph)
 
-    def step(rw, rn, pw, pn, meta, path_start, group, cand_path, owned):
+    def step(reads2, panel_padded, meta, path_start, group, cand_path,
+             owned):
         gidx = jax.lax.axis_index("graph")
         lo = (gidx * tags_per_shard).astype(jnp.int32)
         hi = jnp.minimum(lo + tags_per_shard, n_tags).astype(jnp.int32)
-        out = dp_filter_count_v3(
-            rw, rn, pw, pn, meta, path_start, group, cand_path, owned,
+        out = dp_filter_count(
+            reads2, panel_padded, meta, path_start, group, cand_path, owned,
             bucket=bucket, band=band, params=params,
             n_groups=n_groups_per_shard, n_tags=n_tags, d_over=d_over,
             min_score=min_score, min_density_millis=min_density_millis,
@@ -187,7 +169,7 @@ def make_sharded_count_step_v3(
             step,
             mesh=mesh,
             in_specs=(
-                P(), P(), P(), P(),  # packed buffers replicated
+                P(), P(),  # sequence buffers replicated
                 P(None, "data"),  # meta problems sharded
                 spec_d, spec_d, spec_d,
                 P(),  # owned table replicated
@@ -198,17 +180,12 @@ def make_sharded_count_step_v3(
     )
 
 
-def packed_buffers(data: DeviceData):
-    """The (rw, rn, pw, pn) word buffers of a production upload."""
-    return data.packed_words()
-
-
 def assert_no_group_straddle(
     group: np.ndarray, meta: np.ndarray, data_shards: int
 ) -> None:
     """Check that no winner-competition group straddles a data-shard cut.
 
-    ``make_sharded_count_step_v3`` elects one winner PER SHARD per group id;
+    ``make_sharded_count_step`` elects one winner PER SHARD per group id;
     a (read, cluster) group split across the equal data split would be
     counted once per shard it touches. Padding rows (meta window length 0)
     are ignored — they can never win. Raises AssertionError on a straddle.

@@ -9,7 +9,7 @@ tables merge across hosts, then one host genotypes. Two transports exist:
 - the file-glued ``--shard i/n`` + ``merge`` commands (no coordinator
   needed; any shared filesystem);
 - this module: ``jax.distributed`` process groups with the merge riding
-  the ICI/DCN fabric (``--multihost`` on the run command), no shared
+  the interconnect (``--multihost`` on the run command), no shared
   filesystem required.
 
 Counts are tag-keyed dicts whose key sets differ per host (a host may see
@@ -31,7 +31,7 @@ def initialize(
     """Join the jax.distributed process group; return (index, count).
 
     With no arguments, jax.distributed.initialize auto-discovers the
-    cluster from the TPU pod metadata / standard env vars; on a single
+    cluster from a cluster manager's environment (e.g. SLURM); on a single
     unconfigured host auto-detection fails and (0, 1) is returned with a
     warning.
 

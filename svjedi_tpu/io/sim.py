@@ -421,3 +421,43 @@ def write_fastq(path, names: List[str], seqs: List[str]) -> None:
     with open(path, "w") as fh:
         for name, seq in zip(names, seqs):
             fh.write(f"@{name}\n{seq}\n+\n{'I' * len(seq)}\n")
+
+
+def write_bundle(
+    directory,
+    genome_bases: int = 10_000_000,
+    n_svs: int = 1000,
+    coverage: float = 20.0,
+    sv_types: Sequence[str] = ("DEL", "INS", "INV"),
+    seed: int = 2,
+    read_seed: int = 11,
+) -> Dict[str, object]:
+    """Write a seeded genotyping run's inputs: reference FASTA, truth VCF
+    and FASTQ reads, on one chromosome.
+
+    The defaults are the repo's "scale" configuration (bench.py
+    ``SVJT_BENCH_CONFIG=scale``): 10 Mb, 1,000 SVs, 20x reads, the same
+    seeds. Returns the three paths plus the read and base counts.
+    """
+    from pathlib import Path
+
+    from .fasta import write_fasta
+
+    sim = simulate(
+        seed=seed, chrom_lengths={"chr1": genome_bases}, n_svs=n_svs,
+        sv_types=sv_types,
+    )
+    out = Path(directory)
+    out.mkdir(parents=True, exist_ok=True)
+    bundle: Dict[str, object] = {
+        "ref": out / "reference.fasta",
+        "vcf": out / "truth.vcf",
+        "reads": out / "reads.fastq",
+    }
+    write_fasta(bundle["ref"], sim.chroms)
+    write_truth_vcf(sim, bundle["vcf"])
+    bundle["n_reads"], bundle["n_bases"] = simulate_reads_fastq(
+        np.random.default_rng(read_seed), sim.haplotypes, coverage,
+        bundle["reads"],
+    )
+    return bundle

@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the hot compute paths."""
+"""Hand-written device kernels (CUDA, called through jax.ffi)."""

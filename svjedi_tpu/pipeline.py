@@ -237,11 +237,11 @@ def run_pipeline(cfg: PipelineConfig) -> Dict:
         stats.set("n_reads", reads.n_reads)
         stats.set("read_bases", int(reads.lengths.sum()))
 
-    # Single-host multi-chip data parallelism (DistConfig.data_shards):
+    # Single-host multi-device data parallelism (DistConfig.data_shards):
     # read chunks round-robin over the first N local devices, panel
-    # replicated per chip; the per-(SV, allele) count sum — the pipeline's
-    # only cross-read reduction — merges per-chip results exactly
-    # (SURVEY §2.2). Chunk size shrinks so every chip gets work.
+    # replicated per device; the per-(SV, allele) count sum — the
+    # pipeline's only cross-read reduction — merges per-device results
+    # exactly (SURVEY §2.2). Chunk size shrinks so every device gets work.
     devices = None
     chunk_reads = 16384
     if cfg.dist.data_shards > 1:
@@ -262,11 +262,14 @@ def run_pipeline(cfg: PipelineConfig) -> Dict:
         import jax
 
         jax.profiler.start_trace(str(cfg.profile_dir))
+    align_timings: Dict = {}
     with stats.timer("align"):
         counts, audit, winners = align_and_count(
             reads, panel, index, cfg.align, cfg.genotype, decoy=decoy,
-            devices=devices, chunk_reads=chunk_reads,
+            devices=devices, chunk_reads=chunk_reads, timings=align_timings,
         )
+    for key in ("dp_engine", "device_scan", "n_retries", "n_candidates"):
+        stats.set(key, align_timings[key])
     if profiling:
         import jax
 

@@ -1,7 +1,7 @@
 """ctypes binding to the native C++ I/O library (``native/fastio.cpp``).
 
 The reference's only native component is minigraph (SURVEY §2.1); our compute
-path is JAX/Pallas, and the native runtime piece is the I/O hot loop: zlib
+path is JAX, and the native runtime piece is the I/O hot loop: zlib
 decompression + FASTQ parsing + 2-bit encoding. Falls back to ``None`` when
 the shared library has not been built (``make -C native``).
 """

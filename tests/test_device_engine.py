@@ -1,9 +1,6 @@
-"""Device window-fetch engines: gather (CPU) vs DMA kernel (interpret)."""
+"""Device read/panel layout and the XLA window-fetch engine."""
 
 import numpy as np
-import pytest
-
-import jax
 
 from svjedi_tpu.align.extend import DPParams, band_dp_batch
 from svjedi_tpu.align import device as dev
@@ -66,7 +63,7 @@ def test_gather_engine_matches_manual_windows():
     q_start, m, t_start, t_lo, t_hi = _window_problems(rng, data, panel, len(codes))
     out = dev.window_score(
         data.reads2, data.panel_padded, q_start, m, t_start, t_lo, t_hi,
-        bucket=bucket, band=band, params=DPParams(), engine="gather",
+        bucket=bucket, band=band, params=DPParams(),
     )
     # Manual window construction + reference DP.
     reads2 = np.asarray(data.reads2)
@@ -87,51 +84,3 @@ def test_gather_engine_matches_manual_windows():
         np.testing.assert_array_equal(
             np.asarray(out[key]), np.asarray(ref[key]), err_msg=key
         )
-
-
-def test_dma_kernel_matches_gather_interpret():
-    rng = np.random.default_rng(2)
-    codes, offsets, panel, data = _layout(rng)
-    bucket = band = 128
-    q_start, m, t_start, t_lo, t_hi = _window_problems(rng, data, panel, len(codes))
-    ref = dev.window_score(
-        data.reads2, data.panel_padded, q_start, m, t_start, t_lo, t_hi,
-        bucket=bucket, band=band, params=DPParams(), engine="gather",
-    )
-    from svjedi_tpu.kernels.band_dp_dma import band_dp_dma
-
-    out = band_dp_dma(
-        data.reads2, data.panel_padded,
-        q_start, t_start, m, t_lo, t_hi,
-        bucket=bucket, band=band, params=DPParams(), interpret=True,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out["score"]), np.asarray(ref["score"])
-    )
-    agree = np.ones(len(q_start), bool)
-    for key in ("qs", "ts", "qe", "te"):
-        agree &= np.asarray(out[key]) == np.asarray(ref[key])
-    # Scores are asserted identical above; span endpoints may differ only
-    # when several optimal alignments tie (random data, small P → allow a
-    # couple of tie cases)...
-    assert agree.mean() >= 0.7
-    # ...and every tie-case span must itself attain the optimal score on
-    # the clamped problem (no blind mismatch budget).
-    from _span_check import assert_spans_optimal
-
-    reads2 = np.asarray(data.reads2)
-    panel_padded = np.asarray(data.panel_padded)
-    P = len(q_start)
-    q = np.full((P, bucket), 4, np.int8)
-    t = np.full((P, bucket + band), 4, np.int8)
-    for p in range(P):
-        win = reads2[q_start[p] : q_start[p] + bucket].copy()
-        win[m[p] :] = 4
-        q[p] = win
-        tw = panel_padded[t_start[p] : t_start[p] + bucket + band].copy()
-        pos = t_start[p] + np.arange(bucket + band)
-        tw[(pos < t_lo[p]) | (pos >= t_hi[p])] = 4
-        t[p] = tw
-    assert_spans_optimal(
-        q, t, band, DPParams(), out, np.flatnonzero(~agree)
-    )

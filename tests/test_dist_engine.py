@@ -3,7 +3,7 @@
 VERDICT r1 required the two counting implementations to be proven
 equivalent on identical candidates: the host path (align/pipeline.py
 ``align_candidates`` + ``count_support``) and the device path
-(dist/engine.py ``dp_filter_count_v3``). The construction (short
+(dist/engine.py ``dp_filter_count``). The construction (short
 single-block chains from the production seeding stages) makes the on-device
 winner-per-group rule coincide with the host chain reduction.
 """
@@ -23,13 +23,11 @@ def test_dp_filter_count_v3_matches_count_support(prob):
     from svjedi_tpu.align.pipeline import align_candidates, count_support
     from svjedi_tpu.align.seed import ChainParams, seed_candidates
     from svjedi_tpu.config import GenotypeConfig
-    from svjedi_tpu.dist.engine import dp_filter_count_v3
+    from svjedi_tpu.dist.engine import dp_filter_count
 
-    rw, rn, pw, pn = prob["data"].packed_words()
     dev_counts = np.asarray(
-        dp_filter_count_v3(
-            rw, rn, pw, pn, prob["meta"], prob["path_start"],
-            prob["group"], prob["cand_path"], prob["owned"],
+        dp_filter_count(
+            *graft._count_args(prob),
             bucket=prob["bucket"], band=prob["band"], params=prob["params"],
             n_groups=prob["n_groups"], n_tags=prob["n_tags"], engine="xla",
         )["counts"]
@@ -56,12 +54,11 @@ def test_dp_filter_count_v3_matches_count_support(prob):
 def test_sharded_count_step_v3_matches_single_device(prob):
     """The psum-merged sharded step equals the single-device step (the
     dry-run asserts the same on the driver's virtual mesh; this keeps it
-    in CI on the 8-device conftest mesh, with the v3 kernels in interpret
-    mode)."""
+    in CI on the 8-device conftest mesh, with the XLA engine)."""
     import jax
 
     from svjedi_tpu.dist.engine import (
-        dp_filter_count_v3, make_sharded_count_step_v3,
+        dp_filter_count, make_sharded_count_step,
     )
     from svjedi_tpu.dist.mesh import make_mesh
 
@@ -71,19 +68,14 @@ def test_sharded_count_step_v3_matches_single_device(prob):
         devices=jax.devices()[:n],
     )
     p = graft._production_problem(pad_to=128 * mesh.shape["data"])
-    rw, rn, pw, pn = p["data"].packed_words()
-    step = make_sharded_count_step_v3(
+    step = make_sharded_count_step(
         mesh, bucket=p["bucket"], band=p["band"], params=p["params"],
-        n_groups_per_shard=p["n_groups"], n_tags=p["n_tags"], engine="v3i",
+        n_groups_per_shard=p["n_groups"], n_tags=p["n_tags"], engine="xla",
     )
-    counts = np.asarray(
-        step(rw, rn, pw, pn, p["meta"], p["path_start"], p["group"],
-             p["cand_path"], p["owned"])
-    )
+    counts = np.asarray(step(*graft._count_args(p)))
     ref = np.asarray(
-        dp_filter_count_v3(
-            rw, rn, pw, pn, p["meta"], p["path_start"], p["group"],
-            p["cand_path"], p["owned"],
+        dp_filter_count(
+            *graft._count_args(p),
             bucket=p["bucket"], band=p["band"], params=p["params"],
             n_groups=p["n_groups"], n_tags=p["n_tags"], engine="xla",
         )["counts"]
